@@ -3,7 +3,7 @@ external ``idiaptts_egs_*`` recipe repos, self-contained on the
 committed 9-utterance fixture set).
 
 Stages (Kaldi-style ``--stage N`` resume):
-  1  extract WORLD features (fused TPU analysis) + norm stats
+  1  extract WORLD features (fused analysis) + norm stats
   2  generate question labels from HTS state-aligned labels (+ C++
      matcher if built) and phone durations
   3  train the duration model
@@ -15,8 +15,7 @@ Stages (Kaldi-style ``--stage N`` resume):
      trainer.serve()'s batching SynthesisServer
   8  (opt-in: --stop_stage 8) train a WaveNet neural vocoder on the
      corpus, export a standalone vocoder bundle, and neural-vocode a
-     test utterance (the fused Pallas sampler drives generation on
-     TPU; autoregressive generation is slow on CPU)
+     test utterance (autoregressive generation is slow on CPU)
 
 Usage:
   python egs/ljspeech_demo/run.py --work_dir /tmp/ljdemo [--stage 1]

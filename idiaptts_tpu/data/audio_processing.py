@@ -3,7 +3,7 @@
 Migration surface parity with
 ``idiaptts/src/data_preparation/audio/AudioProcessing.py`` (:33-339):
 every static method of the reference class exists here under the same
-name and delegates to the JAX/TPU kernels (`ops.mcep`, `ops.stft`,
+name and delegates to the JAX kernels (`ops.mcep`, `ops.stft`,
 `ops.world`, `ops.audio_io`).  Code written against the reference's
 ``AudioProcessing.X(...)`` calls keeps working with an import swap;
 new code can call the ops modules directly.

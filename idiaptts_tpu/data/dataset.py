@@ -1,5 +1,5 @@
 """Dataset layer: multi-reader merge, length matching, crops, and the
-TPU-native batching (bucketed static shapes + sequence masks).
+Accelerator batching (bucketed static shapes + sequence masks).
 
 Capability parity with the reference's
 ``PyTorchDatareadersDataset.py`` (:20-246 — multi-reader merge with
@@ -8,7 +8,7 @@ handling, ``max_frames`` random crops propagated to matched readers) and
 ``PyTorchWindowingDatareadersDataset.py`` (:25-163 — sliding-window
 streaming over long utterances).
 
-TPU-native replacement for the torch collate
+JAX replacement for the torch collate
 (``ModularModelHandlerPyTorch.prepare_batch`` :388-465): instead of
 ragged ``pad_sequence`` + packed RNNs, ``collate_batch`` pads every
 batch to a bucket boundary so XLA compiles one program per bucket, and

@@ -1,4 +1,4 @@
-"""Typed hyper-parameter container for the TPU-native IdiapTTS rebuild.
+"""Typed hyper-parameter container for the JAX IdiapTTS rebuild.
 
 Capability parity with the reference's ``ExtendedHParams``
 (``idiaptts/src/ExtendedHParams.py`` over the vendored TF HParams clone in
@@ -250,7 +250,7 @@ class ExtendedHParams:
 
         Mirrors the documented keys of the reference's
         ``ExtendedHParams.create_hparams`` (ExtendedHParams.py:132-310) with
-        TPU-native replacements: ``num_devices``/``mesh_shape`` instead of
+        JAX replacements: ``num_devices``/``mesh_shape`` instead of
         ``num_gpus``/CUDA flags, ``dtype`` (bf16 default for compute) instead
         of the unimplemented fp16 flag.
         """
@@ -272,11 +272,12 @@ class ExtendedHParams:
             model_type=None,
             model_config=None,
             # -- device / parallelism ------------------------------------
-            use_gpu=False,           # kept for API compat; means "use TPU"
+            use_gpu=False,           # kept for API compat; unused (JAX
+                                     # picks its default backend)
             num_devices=1,
             model_parallel=1,        # tensor-parallel mesh axis size
-            use_shard_map="auto",    # per-device train step (keeps the
-                                     # Pallas kernels live multi-chip)
+            use_shard_map="auto",    # True: explicit per-device train
+                                     # step; "auto"/False: GSPMD step
             mesh_shape=None,         # e.g. {"data": 8}
             data_axis="data",
             dtype="float32",         # parameter dtype

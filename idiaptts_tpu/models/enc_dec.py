@@ -8,14 +8,14 @@ autoregressive decoding ``DecoderModule.py:82-329``, attention base +
 — the reference's own batched path is mid-refactor/stubbed, so this is
 a clean implementation of the documented behaviour.
 
-TPU-native design: the decoder is one lifted ``nn.scan`` over frame
+Design: the decoder is one lifted ``nn.scan`` over frame
 chunks for BOTH teacher-forced and free-running modes (a per-step
 selector in the carry chooses the next input), so training and
 inference share parameters and compile to the same scan.  Fixed
 attention is a single (T, P) batched matmul over encoder outputs.
 """
 
-import flax.linen as nn
+from idiaptts_tpu.models import nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +36,6 @@ class DotProductAttention(nn.Module):
 
     attention_dim: int = 128
 
-    @nn.compact
     def __call__(self, queries, keys, values, key_lengths=None):
         q = nn.Dense(self.attention_dim, name="query")(queries)
         k = nn.Dense(self.attention_dim, name="key")(keys)
@@ -64,7 +63,6 @@ class _AttentionDecoderStep(nn.Module):
     use_dot_attention: bool
     attention_dim: int
 
-    @nn.compact
     def __call__(self, carry, inputs):
         lstm_carries, prev_ar = carry
         ctx_flat, tgt_flat, use_tf, keys, values, mem_mask = inputs
@@ -120,14 +118,13 @@ class AttentionDecoder(nn.Module):
     role; the reference's DotProductAttention.py is an empty stub — the
     content-based path here completes that intent).
 
-    TPU-native: one ``nn.scan`` over frame chunks for both
+    Design: one ``nn.scan`` over frame chunks for both
     teacher-forced and free-running decoding (a per-chunk selector picks
     the next input), so training and inference compile to the same scan
     and trivially stay parameter-compatible."""
 
     config: "AttentionDecoder.Config"
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         from idiaptts_tpu.models.named import merge_inputs, select_lengths
         cfg = self.config
@@ -280,7 +277,6 @@ class EncDecGraph(nn.Module):
 
     modules_list: tuple
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         for module in self.modules_list:
             data_dict = module(data_dict, lengths=lengths,
@@ -347,7 +343,6 @@ class _DecoderStep(nn.Module):
     decoder_dim: int
     frame_out: int
 
-    @nn.compact
     def __call__(self, carry, inputs):
         lstm_carry, prev_frames = carry
         ctx_flat, tgt_flat, use_tf = inputs
@@ -367,7 +362,6 @@ class EncDecDyn(nn.Module):
 
     config: "EncDecDyn.Config"
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         cfg = self.config
         phones = jnp.asarray(data_dict[cfg.input_names[0]])

@@ -9,13 +9,13 @@ pre-trained atom model + trainable intonation filters; e2e LF0 =
 filtered atom amplitudes) and ``models/PhraseNeuralFilters.py``
 (:18-55 — adds a phrase-bias filter).
 
-TPU-native design: the IIR recurrences run as a single ``lax.scan``
+Design: the IIR recurrences run as a single ``lax.scan``
 over time with all filters in the bank evaluated as one vector step
 (state (B, 2, num_filters)); poles are learned in the stable domain via
 sigmoid parametrisation.
 """
 
-import flax.linen as nn
+from idiaptts_tpu.models import nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,7 +68,6 @@ class CriticalFilterBank(nn.Module):
 
     init_moduli: tuple
 
-    @nn.compact
     def __call__(self, x, sum_filters=True):
         init = np.asarray(self.init_moduli, np.float32)
         logit = self.param(
@@ -90,7 +89,6 @@ class ComplexFilterBank(nn.Module):
     init_moduli: tuple
     phase_init: float = 0.0
 
-    @nn.compact
     def __call__(self, x, sum_filters=True):
         init = np.asarray(self.init_moduli, np.float32)
         logit = self.param(
@@ -122,7 +120,6 @@ class NeuralFilters(nn.Module):
     complex_poles: bool = True
     phase_init: float = 0.0
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         out = self.atom_model(data_dict, lengths=lengths,
                               training=training)
@@ -175,7 +172,6 @@ class PhraseNeuralFilters(nn.Module):
     phrase_theta_init: float = 0.05
     phrase_bias_init: float = 4.5
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         out = self.neural_filters(data_dict, lengths=lengths,
                                   training=training)

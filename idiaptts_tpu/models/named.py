@@ -6,11 +6,11 @@ named inputs / merge / write named outputs, :116-137 merge types,
 and ``NamedForwardWrapper.py`` (:19-107), ``NamedForwardSplitter.py`` /
 ``NamedForwardCombiner.py``.
 
-All modules operate batch-first (B, T, D) — the TPU-native layout — and
+All modules operate batch-first (B, T, D) and
 take a ``lengths`` vector (B,) for masking.
 """
 
-import flax.linen as nn
+from idiaptts_tpu.models import nn
 import jax.numpy as jnp
 
 from idiaptts_tpu.models.config import ModelConfig
@@ -97,7 +97,6 @@ class NamedForwardWrapper(nn.Module):
     input_merge_type: str = ModelConfig.MERGE_CAT
     teacher_forcing_input_names: tuple = ()
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         inputs = merge_inputs(data_dict, self.input_names,
                               self.input_merge_type, training,
@@ -171,7 +170,6 @@ class Sequential(nn.Module):
 
     modules_list: tuple
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         for module in self.modules_list:
             data_dict = module(data_dict, lengths=lengths,

@@ -7,16 +7,16 @@ per-group embedding concatenation, the legacy model-string parser
 EmbeddingConfig; ``FFWrapper.py`` / ``RNNWrapper.py`` / ``CNNWrapper.py``
 layer builders; ``Pooling.py`` / ``VanillaVAE`` / ``AlwaysDropout``).
 
-TPU-native design: batch-first (B, T, D) tensors throughout; recurrent
-layers are flax ``nn.RNN`` scans with ``seq_lengths`` masking (which
-reproduces packed-sequence semantics incl. the reverse direction of
-BiLSTMs starting at each sequence's true end); Conv1d via
-``nn.Conv``; dropout/BatchNorm driven by the ``training`` flag.
+Design: batch-first (B, T, D) tensors throughout; recurrent layers are
+``lax.scan``s with ``seq_lengths`` masking (which reproduces
+packed-sequence semantics incl. the reverse direction of BiLSTMs
+starting at each sequence's true end); Conv1d via ``nn.Conv``;
+dropout/BatchNorm driven by the ``training`` flag.
 """
 
 import re
 
-import flax.linen as nn
+from idiaptts_tpu.models import nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -110,14 +110,13 @@ def masked_flip(x, lengths):
 class _FastLSTM(nn.Module):
     """LSTM with the input projection hoisted out of the scan.
 
-    The x @ W_x projection for ALL timesteps is one large MXU matmul;
+    The x @ W_x projection for ALL timesteps is one large matmul;
     the scan body only computes the lean recurrence h @ W_h + gates —
     roughly halving the sequential work vs a per-step full cell."""
 
     features: int
     unroll: int = 16
 
-    @nn.compact
     def __call__(self, x, lengths=None, reverse=False):
         B, T, D = x.shape
         F = self.features
@@ -165,7 +164,6 @@ class _BiFastLSTM(nn.Module):
     features: int
     unroll: int = 16
 
-    @nn.compact
     def __call__(self, x, x_rev):
         B, T, D = x.shape
         F = self.features
@@ -175,51 +173,6 @@ class _BiFastLSTM(nn.Module):
                         (2, F, 4 * F))
         b = self.param("b", nn.initializers.zeros, (2, 4 * F))
         xd = jnp.stack([x, x_rev], axis=0)       # (2, B, T, D)
-
-        # Fused Pallas BiLSTM layer on single-device TPU: the input
-        # projection runs INSIDE the kernel (one 128-row MXU matmul per
-        # direction per time block) so the (T, rows, 4F) f32 projection
-        # tensor never exists in HBM; W_x/W_h stay VMEM-resident and
-        # both directions share one block-diagonal matmul per step
-        # (ops/pallas_lstm.py).  Falls back to einsum + recurrence-only
-        # kernel, then to the pure scan.
-        from idiaptts_tpu.ops import pallas_ctx
-        from idiaptts_tpu.ops.pallas_lstm import (
-            bilstm_layer_tmajor, bilstm_recurrence_tmajor,
-            layer_train_viable, layer_viable, pallas_viable,
-            train_viable, use_pallas_recurrence)
-        # Training-step traces (pallas_ctx.train_profile) use the
-        # TRAIN viability gates: the kernels stay live up to a full
-        # 128-row MXU tile (B=64) because the scan VJP's f32 residual
-        # saves go HBM-bound there, where the inference gates would
-        # correctly hand those batches to the scan.
-        if pallas_ctx.train_profile_active():
-            use_layer = layer_train_viable(B, D, F)
-            use_rec = use_layer or train_viable(B, F)
-        else:
-            use_layer = layer_viable(B, D, F)
-            use_rec = use_layer or pallas_viable(B, F)
-        if use_pallas_recurrence() and use_rec:
-            Bp = -(-B // 8) * 8      # sublane-align each direction
-            xd_p = jnp.pad(xd, ((0, 0), (0, Bp - B), (0, 0), (0, 0)))
-            wh_cat = jnp.concatenate([Wh[0], Wh[1]], axis=0)
-            if use_layer:
-                xin_t = jnp.transpose(xd_p.astype(jnp.bfloat16),
-                                      (2, 0, 1, 3))  # (T, 2, Bp, D)
-                xin_t = xin_t.reshape(T, 2 * Bp, D)
-                hs = bilstm_layer_tmajor(xin_t, Wx, wh_cat, b)
-            else:
-                xp_t = jnp.einsum("dbtc,dcg->tdbg",
-                                  xd_p.astype(jnp.bfloat16),
-                                  Wx.astype(jnp.bfloat16)
-                                  ).astype(jnp.float32) \
-                    + b[None, :, None, :]          # (T, 2, Bp, 4F)
-                xp_t = xp_t.reshape(T, 2 * Bp, 4 * F)
-                hs = bilstm_recurrence_tmajor(xp_t, wh_cat)
-            hs = hs.reshape(T, 2, Bp, F)
-            out_f = jnp.transpose(hs[:, 0, :B], (1, 0, 2))
-            out_b_rev = jnp.transpose(hs[:, 1, :B], (1, 0, 2))
-            return out_f, out_b_rev
 
         x_proj = jnp.einsum("dbtc,dcg->dbtg",
                             xd.astype(jnp.bfloat16),
@@ -250,9 +203,8 @@ class _BiFastLSTM(nn.Module):
 class _MaskedFlipRNN(nn.Module):
     """Uni/bi-directional recurrent stack with length-aware reverse.
 
-    ``dtype=bfloat16`` keeps the matmuls on the MXU fast path
-    (parameters stay float32); ``unroll`` amortises the per-step scan
-    overhead on TPU."""
+    ``dtype=bfloat16`` runs the matmuls in bf16 (parameters stay
+    float32); ``unroll`` amortises the per-step scan overhead."""
 
     cell_type: str
     out_dim: int
@@ -277,7 +229,6 @@ class _MaskedFlipRNN(nn.Module):
                                  dtype=dtype, name=f"{direction}{idx}")
         raise NotImplementedError(self.cell_type)
 
-    @nn.compact
     def __call__(self, x, lengths=None, training=False):
         for layer in range(self.num_layers):
             if self.cell_type == "LSTM" and self.bidirectional:
@@ -317,7 +268,6 @@ class VanillaVAE(nn.Module):
 
     out_dim: int
 
-    @nn.compact
     def __call__(self, x, training=False):
         mu = nn.Dense(self.out_dim, name="mu")(x)
         logvar = nn.Dense(self.out_dim, name="logvar")(x)
@@ -337,7 +287,6 @@ class RNNDyn(nn.Module):
 
     config: "Config"
 
-    @nn.compact
     def __call__(self, inputs, lengths=None, training=False):
         cfg = self.config
         num_embs = len(cfg.emb_configs)
@@ -378,11 +327,10 @@ class RNNDyn(nn.Module):
             if use_remat:
                 # Rematerialise this group's activations in the
                 # backward pass: trade FLOPs for HBM on long
-                # sequences.  The flax-lifted nn.remat (not raw
-                # jax.checkpoint) keeps param creation / dropout rngs
-                # working, and the function form keeps this module's
-                # scope so parameter names (and checkpoints) are
-                # identical to the non-remat path.
+                # sequences.  nn.remat creates parameters outside
+                # the checkpoint and keeps this module's scope, so
+                # parameter names (and checkpoints) are identical to
+                # the non-remat path.
                 x = nn.remat(
                     lambda mdl, x_, l_: mdl._apply_group(
                         g_idx, layer, x_, l_, training))(
@@ -496,14 +444,14 @@ class RNNDyn(nn.Module):
             # Active at inference too (AlwaysDropout.py role).
             return nn.Dropout(layer.dropout, deterministic=False)(x)
         if t == "Custom":
-            # Arbitrary user flax module in the stack
+            # Arbitrary user module in the stack
             # (rnn_dyn/CustomWrapper.py role). extra["module"] is a
             # module instance or zero-arg factory; modules taking
             # (x, lengths, training) get the full context.
             factory = layer.extra.get("module")
             if factory is None:
                 raise ValueError("Custom layer needs "
-                                 "extra={'module': <flax module or "
+                                 "extra={'module': <module or "
                                  "factory>}")
             mod = factory if isinstance(factory, nn.Module) \
                 else factory()

@@ -9,16 +9,16 @@ law ((a1+a2)/(1+a1*a2)) :175-184; ``layers/AllPassWarpLayer.py``
 scaling, denorm -> warp -> renorm; ``pytorch/GradientScaling.py``
 :13-41).
 
-TPU-native design: the warp matrix per frame is one einsum between the
+Design: the warp matrix per frame is one einsum between the
 precomputed polynomial tensor ``W (n, n, 2n)`` and the alpha power
-vector — pure MXU work, no per-frame Python.  The polynomial tensor is
+vector — matmul work, no per-frame Python.  The polynomial tensor is
 built by the exact Oppenheim recursion on polynomial coefficients
 (numerically stable, no factorials).
 """
 
 from functools import lru_cache
 
-import flax.linen as nn
+from idiaptts_tpu.models import nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,7 +65,7 @@ def get_warp_matrix(alphas, n):
     """alphas (..., 1) -> warp matrices (..., n, n) via one einsum.
 
     ``Precision.HIGHEST`` keeps the polynomial contraction in true f32
-    on TPU (the default single-pass bf16 matmul breaks the exact
+    (a default-precision bf16 or TF32 matmul breaks the exact
     identity warp at alpha=0); the op is tiny, the cost is nil."""
     W = jnp.asarray(gen_w_matrix_3d(n))          # (n, n, 2n)
     powers = alpha_powers(alphas, 2 * n)         # (..., 2n)
@@ -141,7 +141,6 @@ class AllPassWarpLayer(nn.Module):
     std_dev: tuple = None
     grad_lambda: float = 200.0       # gradient boost for alpha layers
 
-    @nn.compact
     def __call__(self, features, alpha_inputs, training=False):
         """features (B, T, D); alpha_inputs: list of (B, T, d_i)."""
         alphas = []
@@ -189,7 +188,6 @@ class _AllPassWarpDictModule(nn.Module):
 
     config: AllPassWarpLayer.Config
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         cfg = self.config
         features = merge_inputs(data_dict, cfg.input_names)

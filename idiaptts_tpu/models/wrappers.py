@@ -17,7 +17,7 @@ Python loops (reference :259-276) — so one jit program serves every
 batch composition.
 """
 
-import flax.linen as nn
+from idiaptts_tpu.models import nn
 import jax.numpy as jnp
 import numpy as np
 
@@ -45,7 +45,6 @@ class WindowingWrapper(nn.Module):
     window_step: int
     output_merge_type: str = "window"
 
-    @nn.compact
     def __call__(self, data_dict, lengths=None, training=False):
         lengths = select_lengths(lengths, *self.input_names)
         x0 = jnp.asarray(data_dict[self.input_names[0]])

@@ -6,12 +6,11 @@ Replaces the reference's SPTK calls (``AudioProcessing.py``:
 ``pysptk.mgc2sp``, ``fs_to_mgc_alpha`` :33 via ``pysptk.mcepalpha``, and
 nnmnkwii's ``merlin_post_filter`` :19,310).
 
-TPU-native design: with the all-pass warp
+Design: with the all-pass warp
 ``beta(w) = w + 2*atan(alpha*sin(w) / (1 - alpha*cos(w)))`` the mel
 log-amplitude model is ``log|H(w)| = sum_m c_m cos(m*beta(w))`` — a linear
 map between cepstra and log spectra.  Both directions become single
-matmuls with precomputed warped-cosine bases (MXU work, batched over
-frames), instead of SPTK's per-frame Newton iterations.  For smooth
+matmuls with precomputed warped-cosine bases (batched over frames), instead of SPTK's per-frame Newton iterations.  For smooth
 CheapTrick-style envelopes the least-squares projection matches SPTK's
 UELS solution closely; parity is asserted to tolerance in tests.
 """
@@ -86,8 +85,8 @@ def _bases(num_bins, order, alpha):
 
 def _mm(x, B):
     """Basis matmul at full f32: the cepstrum<->spectrum transforms are
-    quality-critical (MCD-level), and the TPU default single-pass bf16
-    matmul costs ~0.7% relative error on the reconstructed spectra
+    quality-critical (MCD-level), and a reduced-precision (bf16 or
+    TF32) matmul costs ~0.7% relative error on the reconstructed spectra
     (enough to break the post filter's 1e-3 energy-preservation
     contract).  These matmuls are a negligible slice of synthesis
     time."""
@@ -113,7 +112,7 @@ def amp_sp_to_mcep(amp_sp, order, alpha, num_iters=32):
     iterations with the FIXED Hessian at the optimum (w = 1), i.e. a
     preconditioned gradient method: per iteration only two (T, K)@(K, M)
     matmuls, no per-frame Hessian assembly or batched 21x21 solves
-    (those cost ~90 ms/utterance on TPU vs ~0 for this formulation;
+    (batched small solves are slow on accelerators;
     32 cheap iterations land within 0.06 mcep units max / 0.001 mean of
     the exact damped-Newton solution on real CheapTrick spectra).
     The asymmetric criterion fits spectral peaks tightly like SPTK,

@@ -6,7 +6,7 @@ Capability parity with the reference's bandmat-based implementation
 (co)variances and 1e11 boundary variances on the delta windows, solved via
 a banded Cholesky factorisation.
 
-TPU-native design: the precision matrix is symmetric pentadiagonal, so the
+Design: the precision matrix is symmetric pentadiagonal, so the
 solve is a bandwidth-2 Cholesky factorisation plus forward/back
 substitution expressed as ``lax.scan`` recurrences, vectorised over all
 feature dimensions at once (the reference loops dimensions in Python and
@@ -248,14 +248,17 @@ def mlpg_factorise(variances, feature_dim, num_frames):
     return jnp.stack([l0, l1, l2]), tau
 
 
-@partial(jax.jit, static_argnames=("feature_dim",))
-def mlpg_solve(features, factors, tau, feature_dim):
+@partial(jax.jit, static_argnames=("feature_dim", "kernel"))
+def mlpg_solve(features, factors, tau, feature_dim, kernel=None):
     """MLPG with precomputed Cholesky factors: only the two
-    substitution scans run per utterance (the factorisation — a third
-    of the sequential work — is amortised across the corpus).
+    substitutions run per utterance (the factorisation — a third of the
+    sequential work — is amortised across the corpus).  On a single GPU
+    they run as one Triton kernel (``ops/pallas_mlpg.py``), elsewhere as
+    two ``lax.scan``s.
 
     features: (..., T, 3*feature_dim); factors: (3, T, D) from
-    :func:`mlpg_factorise`.  Batched over leading dims.
+    :func:`mlpg_factorise`.  Batched over leading dims.  ``kernel``:
+    None chooses by backend, True/False forces the kernel or the scans.
     """
     l0, l1, l2 = factors[0], factors[1], factors[2]
     T = features.shape[-2]
@@ -275,34 +278,22 @@ def mlpg_solve(features, factors, tau, feature_dim):
         for k in (-1, 0, 1):
             b = b + coeff[k + 1] * shift(btau[..., w, :], k)
 
-    def _use_pallas(L):
-        from idiaptts_tpu.ops import pallas_ctx
-        from idiaptts_tpu.ops.pallas_mlpg import solve_banded_viable
-        return (pallas_ctx.fast_path_allowed()
-                and solve_banded_viable(T, L))
-
-    def solve_one(b_single):
-        if _use_pallas(b_single.shape[-1]):
-            from idiaptts_tpu.ops.pallas_mlpg import solve_banded_pallas
-            return solve_banded_pallas(b_single, l0, l1, l2)
-        return _solve_banded(l0, l1, l2, b_single)
-
+    from idiaptts_tpu.ops import pallas_mlpg
     if b.ndim == 2:
-        return solve_one(b)
-    flat = b.reshape(-1, T, feature_dim)
+        flat = b[None]
+    else:
+        flat = b.reshape(-1, T, feature_dim)
     B = flat.shape[0]
     # One solve with batch folded into the vector dim (fewer sequential
-    # launches than vmap-of-scans); layout (T, B*D) matches tiling.
-    # On a single-device TPU both substitutions run in one VMEM-resident
-    # Pallas kernel (per-step work is a couple of vector registers — the
-    # lax.scan path pays XLA loop overhead per step instead).
+    # steps than vmap-of-scans): layout (T, B*D).
     moved = jnp.moveaxis(flat, 0, 1).reshape(T, B * feature_dim)
     l0_t = jnp.tile(l0, (1, B))
     l1_t = jnp.tile(l1, (1, B))
     l2_t = jnp.tile(l2, (1, B))
-    if _use_pallas(B * feature_dim):
-        from idiaptts_tpu.ops.pallas_mlpg import solve_banded_pallas
-        solved = solve_banded_pallas(moved, l0_t, l1_t, l2_t)
+    if kernel is None:
+        kernel = pallas_mlpg.use_solve_kernel()
+    if kernel:
+        solved = pallas_mlpg.solve_banded_pallas(moved, l0_t, l1_t, l2_t)
     else:
         solved = _solve_banded(l0_t, l1_t, l2_t, moved)
     return jnp.moveaxis(solved.reshape(T, B, feature_dim), 1,
@@ -318,12 +309,6 @@ class MLPG:
             return mlpg_numpy(features, covariance, feature_dim)
         variances = np.ascontiguousarray(
             np.diagonal(np.asarray(covariance, dtype=np.float32)))
-        # One-shot solves (variable T, no factor cache) run the fused
-        # Pallas kernel on TPU — measured 2.97 ms vs 3.90 ms for the
-        # three-scan path at (T=2048, D=66); batch pipelines with a
-        # per-T factor cache should keep using
-        # mlpg_factorise/mlpg_solve (2.13 ms).
-        from idiaptts_tpu.ops.pallas_mlpg import mlpg_auto
-        out = mlpg_auto(jnp.asarray(features, dtype=jnp.float32),
-                        jnp.asarray(variances), feature_dim)
+        out = mlpg_jax(jnp.asarray(features, dtype=jnp.float32),
+                       jnp.asarray(variances), feature_dim)
         return np.asarray(out)

@@ -1,273 +1,113 @@
-"""MLPG banded solve as a single fused Pallas TPU kernel.
+"""MLPG banded substitution as one Pallas kernel on the Triton route.
 
-The scan-based implementation in :mod:`idiaptts_tpu.ops.mlpg` issues
-three sequential ``lax.scan`` passes (Cholesky, forward, backward),
-each paying per-step XLA loop overhead.  This kernel runs the whole
-bandwidth-2 solve in ONE kernel launch with every buffer resident in
-VMEM: banded system assembly, the Cholesky recurrence, and both
-substitutions as tight ``fori_loop``s whose per-step work is a (1, D)
-VPU vector op.  Feature dimensions (all streams fused) ride the lane
-axis.
+The factor-once fast path (:func:`idiaptts_tpu.ops.mlpg.mlpg_solve`)
+solves ``L L^T x = b`` with the bandwidth-2 Cholesky factor of the
+precision matrix.  The plain version is two ``lax.scan``s of T dependent
+steps each; on a GPU every step of XLA's while loop is a kernel launch
+or more for a few vector operations.  This kernel does the same 2T steps
+inside one launch.
 
-Numerical contract identical to ``mlpg_jax``: windows (1), (-.5,0,.5),
-(1,-2,1); 1e11 boundary variances (mlpg.py docstring / reference
-misc/mlpg.py:94-127).
+Layout: the system is (T, L) with L = batch x feature; the grid runs
+over blocks of ``block`` lanes (a power of two) and each program walks
+the 2T substitution steps in a ``fori_loop`` with the two previous rows
+in registers.  The coefficient rows do not depend on the carry, so the
+loop is unrolled a few rows at a time to issue their loads ahead.  The
+intermediate solution y is kept in the output buffer: the backward pass
+reads row t of y before it overwrites it with x.
+
+The arithmetic is that of ``mlpg._solve_banded`` (divide by the
+diagonal, same operation order).
 """
 
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    _HAS_PALLAS = True
-except ImportError:  # pragma: no cover
-    _HAS_PALLAS = False
-
-_BOUNDARY_VAR = 1e11
+BLOCK_LANES = 32
+NUM_WARPS = 1
+UNROLL = 8
 
 
-def _mlpg_kernel(b_ref, ab0_ref, ab1_ref, ab2_ref, out_ref, l0_ref,
-                 l1_ref, l2_ref, y_ref):
-    """Solve L L^T x = b for a bandwidth-2 banded SPD system.
-
-    All refs are (T, D) in VMEM; ab0/1/2 are the [diag, sub1, sub2]
-    banded rows; scratch l0/l1/l2 hold the Cholesky factors and y the
-    intermediate solution.
-    """
+def _solve_kernel(b_ref, l0_ref, l1s_ref, l2s_ref, l1_ref, l2_ref,
+                  out_ref):
     T = b_ref.shape[0]
+    zero = jnp.zeros(b_ref.shape[1:], jnp.float32)
 
-    # --- banded Cholesky --------------------------------------------
-    # l0[t] = sqrt(a0[t] - l1[t-1]^2 - l2[t-2]^2)
-    # l1[t] = (a1[t] - l1[t-1] * l2[t-1]) / l0[t]
-    # l2[t] = a2[t] / l0[t]
-    l0_0 = jnp.sqrt(jnp.maximum(ab0_ref[0, :], 1e-20))
-    l0_ref[0, :] = l0_0
-    l1_ref[0, :] = ab1_ref[0, :] / l0_0
-    l2_ref[0, :] = ab2_ref[0, :] / l0_0
+    def forward_row(t, y_m1, y_m2):
+        y = (b_ref[t, :] - l1s_ref[t, :] * y_m1
+             - l2s_ref[t, :] * y_m2) / l0_ref[t, :]
+        out_ref[t, :] = y
+        return y
 
-    l0_1 = jnp.sqrt(jnp.maximum(ab0_ref[1, :] - l1_ref[0, :] ** 2,
-                                1e-20))
-    l0_ref[1, :] = l0_1
-    l1_ref[1, :] = (ab1_ref[1, :]
-                    - l1_ref[0, :] * l2_ref[0, :]) / l0_1
-    l2_ref[1, :] = ab2_ref[1, :] / l0_1
+    def backward_row(t, x_p1, x_p2):
+        x = (out_ref[t, :] - l1_ref[t, :] * x_p1
+             - l2_ref[t, :] * x_p2) / l0_ref[t, :]
+        out_ref[t, :] = x
+        return x
 
-    def chol_body(t, _):
-        l1_m1 = l1_ref[t - 1, :]
-        l2_m1 = l2_ref[t - 1, :]
-        l2_m2 = l2_ref[t - 2, :]
-        l0_t = jnp.sqrt(jnp.maximum(
-            ab0_ref[t, :] - l1_m1 ** 2 - l2_m2 ** 2, 1e-20))
-        l0_ref[t, :] = l0_t
-        l1_ref[t, :] = (ab1_ref[t, :] - l1_m1 * l2_m1) / l0_t
-        l2_ref[t, :] = ab2_ref[t, :] / l0_t
-        return 0
+    def run(row, order):
+        # UNROLL rows per loop iteration (written out: the Triton route
+        # lowers fori_loop only with unroll=1), then the remainder.
+        def block(i, carry):
+            c1, c2 = carry
+            for r in range(UNROLL):
+                c1, c2 = row(order(i * UNROLL + r), c1, c2), c1
+            return c1, c2
 
-    jax.lax.fori_loop(2, T, chol_body, 0)
+        carry = jax.lax.fori_loop(0, T // UNROLL, block, (zero, zero))
+        for t in range(T // UNROLL * UNROLL, T):
+            carry = row(order(t), *carry), carry[0]
 
-    # --- forward substitution: L y = b ------------------------------
-    y_ref[0, :] = b_ref[0, :] / l0_ref[0, :]
-    y_ref[1, :] = (b_ref[1, :] - l1_ref[0, :] * y_ref[0, :]) \
-        / l0_ref[1, :]
-
-    def fwd_body(t, _):
-        y_ref[t, :] = (b_ref[t, :]
-                       - l1_ref[t - 1, :] * y_ref[t - 1, :]
-                       - l2_ref[t - 2, :] * y_ref[t - 2, :]) \
-            / l0_ref[t, :]
-        return 0
-
-    jax.lax.fori_loop(2, T, fwd_body, 0)
-
-    # --- backward substitution: L^T x = y ---------------------------
-    out_ref[T - 1, :] = y_ref[T - 1, :] / l0_ref[T - 1, :]
-    out_ref[T - 2, :] = (y_ref[T - 2, :]
-                         - l1_ref[T - 2, :] * out_ref[T - 1, :]) \
-        / l0_ref[T - 2, :]
-
-    def bwd_body(i, _):
-        t = T - 3 - i
-        out_ref[t, :] = (y_ref[t, :]
-                         - l1_ref[t, :] * out_ref[t + 1, :]
-                         - l2_ref[t, :] * out_ref[t + 2, :]) \
-            / l0_ref[t, :]
-        return 0
-
-    jax.lax.fori_loop(0, T - 2, bwd_body, 0)
+    run(forward_row, lambda t: t)
+    run(backward_row, lambda t: T - 1 - t)
 
 
-@partial(jax.jit, static_argnames=("feature_dim",))
-def mlpg_pallas(features, variances, feature_dim):
-    """Drop-in replacement for ``mlpg_jax`` running the banded solve in
-    one Pallas kernel.
-
-    features: (T, 3*feature_dim) [statics, deltas, delta-deltas];
-    variances: (3*feature_dim,).  Returns (T, feature_dim).
-    """
-    from idiaptts_tpu.ops.mlpg import _banded_system_jnp
-
-    T = features.shape[0]
-    feats = features.reshape(T, 3, feature_dim)
-    var = jnp.broadcast_to(variances.reshape(3, feature_dim)[None],
-                           (T, 3, feature_dim))
-    var = var.at[0, 1:, :].set(_BOUNDARY_VAR)
-    var = var.at[-1, 1:, :].set(_BOUNDARY_VAR)
-    ab, b = _banded_system_jnp(feats, var)
-
-    # Pad the lane axis to 128 for clean tiling.
-    D = feature_dim
-    D_pad = int(np.ceil(max(D, 1) / 128) * 128)
-    pad = [(0, 0), (0, D_pad - D)]
-    b_p = jnp.pad(b, pad)
-    # Padding lanes need a benign SPD system (identity).
-    ab0_p = jnp.pad(ab[0], pad, constant_values=1.0)
-    ab1_p = jnp.pad(ab[1], pad)
-    ab2_p = jnp.pad(ab[2], pad)
-
-    out = pl.pallas_call(
-        _mlpg_kernel,
-        out_shape=jax.ShapeDtypeStruct((T, D_pad), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 4,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((T, D_pad), jnp.float32),
-            pltpu.VMEM((T, D_pad), jnp.float32),
-            pltpu.VMEM((T, D_pad), jnp.float32),
-            pltpu.VMEM((T, D_pad), jnp.float32),
-        ],
-    )(b_p, ab0_p, ab1_p, ab2_p)
-    return out[:, :D]
-
-
-def mlpg_auto(features, variances, feature_dim):
-    """Use the Pallas kernel on TPU, the scan path elsewhere."""
-    from idiaptts_tpu.ops.mlpg import mlpg_jax
-
-    if _HAS_PALLAS and jax.default_backend() not in ("cpu",):
-        try:
-            return mlpg_pallas(features, variances, feature_dim)
-        except Exception:  # pragma: no cover - fallback safety
-            pass
-    return mlpg_jax(features, variances, feature_dim)
-
-
-# ---------------------------------------------------------------------------
-# Substitution-only kernel for the factor-once fast path: the Cholesky
-# factors are precomputed per length bucket (mlpg.mlpg_factorise), so
-# per-batch work is just L y = b and L^T x = y.  Running both
-# substitutions in one VMEM-resident kernel replaces two lax.scans
-# whose 2*T sequential steps each pay XLA loop overhead on a couple of
-# vector registers of real work.
-# ---------------------------------------------------------------------------
-
-_SOLVE_VMEM_BUDGET = 14 * 1024 * 1024
-
-
-def _solve_kernel(b_ref, inv0_ref, l1_ref, l2_ref, l1s_ref, l2s_ref,
-                  out_ref, y_ref):
-    """Forward+backward substitution for the bandwidth-2 factor.
-
-    All refs (T, L) in VMEM with T a multiple of 8; L folds batch x
-    feature into lanes.  ``inv0`` is 1/l0 (multiply beats divide on the
-    critical path); ``l1s``/``l2s`` are l1/l2 pre-shifted by 1/2 frames
-    so every forward step reads row t only.  The loop walks one 8-row
-    sublane tile at a time — one aligned load per operand and one store
-    per 8 steps — with the two previous solution rows riding the carry
-    as vector registers, so the sequential dependency never leaves the
-    register file.  2.5x faster than the lax.scan pair at the headline
-    shape (3.2 ms vs 7.9 ms for T=2048, L=207); the residual cost is
-    the per-step dependent VPU latency itself (an associative-scan
-    companion-matrix formulation was tried and is slower — 7.4 ms — on
-    einsum traffic).
-
-    Uniform boundary handling: zero-initialised carries plus zeroed
-    shifted coefficients make the t<2 (and mirror-image tail) rows come
-    out of the same code path.
-    """
-    T = b_ref.shape[0]
-    nblk = T // 8
-
-    def fwd_blk(bi, carry):
-        ym1, ym2 = carry
-        t0 = bi * 8
-        b8 = b_ref[pl.ds(t0, 8), :]
-        i8 = inv0_ref[pl.ds(t0, 8), :]
-        s1 = l1s_ref[pl.ds(t0, 8), :]
-        s2 = l2s_ref[pl.ds(t0, 8), :]
-        rows = []
-        for r in range(8):
-            y = (b8[r] - s1[r] * ym1 - s2[r] * ym2) * i8[r]
-            rows.append(y)
-            ym2 = ym1
-            ym1 = y
-        y_ref[pl.ds(t0, 8), :] = jnp.stack(rows)
-        return (ym1, ym2)
-
-    zero = jnp.zeros_like(b_ref[0, :])
-    jax.lax.fori_loop(0, nblk, fwd_blk, (zero, zero))
-
-    def bwd_blk(bi, carry):
-        xp1, xp2 = carry
-        t0 = (nblk - 1 - bi) * 8
-        y8 = y_ref[pl.ds(t0, 8), :]
-        i8 = inv0_ref[pl.ds(t0, 8), :]
-        c1 = l1_ref[pl.ds(t0, 8), :]
-        c2 = l2_ref[pl.ds(t0, 8), :]
-        rows = [None] * 8
-        for r in range(7, -1, -1):
-            x = (y8[r] - c1[r] * xp1 - c2[r] * xp2) * i8[r]
-            rows[r] = x
-            xp2 = xp1
-            xp1 = x
-        out_ref[pl.ds(t0, 8), :] = jnp.stack(rows)
-        return (xp1, xp2)
-
-    jax.lax.fori_loop(0, nblk, bwd_blk, (zero, zero))
-
-
-def solve_banded_viable(T, L):
-    """True when the eight (T, L_pad) f32 buffers fit VMEM."""
-    if not _HAS_PALLAS or T < 3:
-        return False
-    T_pad = int(np.ceil(T / 8) * 8)
-    L_pad = int(np.ceil(max(L, 1) / 128) * 128)
-    return 8 * T_pad * L_pad * 4 <= _SOLVE_VMEM_BUDGET
+def use_solve_kernel():
+    """The kernel runs on a single-GPU trace; every other backend (also
+    a CPU device chosen with ``jax.default_device``), and a
+    multi-device program, takes the plain scans."""
+    device = jax.config.jax_default_device
+    if device is None:
+        platform = jax.default_backend()
+    else:
+        platform = device if isinstance(device, str) else device.platform
+    return platform == "gpu" and jax.device_count() == 1
 
 
 @partial(jax.jit, static_argnames=("interpret",))
 def solve_banded_pallas(b, l0, l1, l2, interpret=False):
-    """Solve L L^T x = b in one kernel launch.
+    """Solve ``L L^T x = b``; all operands (T, L) float32, factors tiled
+    to the L lanes.  Returns (T, L).
 
-    b/l0/l1/l2: (T, L) float32 (factors already tiled to L lanes).
-    Returns (T, L).  Numerical contract identical to
-    ``mlpg._solve_banded``'s two scans up to divide-vs-reciprocal
-    rounding (~1 ulp).
-
-    Padding rows (time tail to the 8-row tile) solve the identity
-    system (inv0=1, coefficients 0, b=0), so they produce zeros and the
-    backward pass enters the real rows with zero carries — exactly the
-    uniform boundary condition the kernel assumes."""
+    The lanes are padded to a multiple of ``BLOCK_LANES`` with an
+    identity system (l0 = 1, off-diagonals 0, b = 0), which solves to
+    zeros."""
     T, L = b.shape
-    T_pad = int(np.ceil(T / 8) * 8)
-    L_pad = int(np.ceil(max(L, 1) / 128) * 128)
-    pad = [(0, T_pad - T), (0, L_pad - L)]
-    inv0 = 1.0 / jnp.pad(l0, pad, constant_values=1.0)
-    l1p = jnp.pad(l1, pad)
-    l2p = jnp.pad(l2, pad)
-    # Forward recurrence reads l1[t-1], l2[t-2] — pre-shift so step t
-    # only touches row t (zeros shift in: the t<2 boundary for free).
-    l1s = jnp.pad(l1p, ((1, 0), (0, 0)))[:-1]
-    l2s = jnp.pad(l2p, ((2, 0), (0, 0)))[:-2]
+    block = BLOCK_LANES
+    pad = (-L) % block
+    lanes = ((0, 0), (0, pad))
+    b = jnp.pad(b.astype(jnp.float32), lanes)
+    l0 = jnp.pad(l0, lanes, constant_values=1.0)
+    l1 = jnp.pad(l1, lanes)
+    l2 = jnp.pad(l2, lanes)
+    # The forward step t reads l1[t-1] and l2[t-2]: shift them down so
+    # it reads row t only (zeros enter at the top: the t < 2 boundary).
+    l1s = jnp.pad(l1, ((1, 0), (0, 0)))[:T]
+    l2s = jnp.pad(l2, ((2, 0), (0, 0)))[:T]
+    spec = pl.BlockSpec((T, block), lambda j: (0, j))
     out = pl.pallas_call(
         _solve_kernel,
-        out_shape=jax.ShapeDtypeStruct((T_pad, L_pad), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 6,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((T_pad, L_pad), jnp.float32)],
+        out_shape=jax.ShapeDtypeStruct(b.shape, jnp.float32),
+        grid=(b.shape[1] // block,),
+        in_specs=[spec] * 6,
+        out_specs=spec,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(jnp.pad(b, pad), inv0, l1p, l2p, l1s, l2s)
-    return out[:T, :L]
+        name="mlpg_solve_banded",
+    )(b, l0, l1s, l2s, l1, l2)
+    return out[:, :L]

@@ -71,8 +71,7 @@ def istft(spec, n_fft=1024, hop_length=256, win_length=None, length=None):
     if win_length % hop_length == 0:
         # Overlap factor k = win / hop: split each frame into k hop
         # chunks and add k diagonally-shifted dense layouts — no
-        # scatter (scatter-add with colliding indices serialises on
-        # TPU).
+        # scatter (scatter-add with colliding indices serialises).
         k = win_length // hop_length
         pad_frames = num_frames + k
 
@@ -191,7 +190,7 @@ def mel_power_to_power_sp(mel_power, fs, n_fft, num_iters=30):
     reference calls librosa's NNLS ``mel_to_stft``; same caveat applies:
     lossy, "use an SSRN instead").
 
-    TPU formulation: multiplicative NNLS updates ``p <- p * (W^T m) /
+    Formulation: multiplicative NNLS updates ``p <- p * (W^T m) /
     (W^T W p)`` — monotone in the KL objective, all matmuls, batched
     over frames, static shapes.  Returns (T, n_fft//2+1) power."""
     n_mels = mel_power.shape[-1]

@@ -3,7 +3,7 @@
 Fills the role of pyworld's CheapTrick (used inside ``wav2world``,
 ``WorldFeatLabelGen.world_extract_features`` WorldFeatLabelGen.py:792).
 
-TPU-first formulation: the pitch-adaptive analysis window (length
+Formulation: the pitch-adaptive analysis window (length
 ``3 * fs / f0``) is realised as a masked fixed-size window so every frame
 runs the same static-shape program; power spectra come from one batched
 FFT; the rectangular frequency smoothing of width ``2 f0 / 3`` is a
@@ -34,7 +34,7 @@ def _cheaptrick_jit(raw, f0, fs, hop, fft_size):
     # --- pitch-adaptive masked windowing -----------------------------
     # Gather-free framing: frame starts lie on the hop grid, so the
     # (T, fft_size) windows are shifted SLICES of the hop-reshaped
-    # signal (large dynamic gathers dominate TPU time otherwise).
+    # signal (no large dynamic gather).
     half_max = fft_size // 2
     offs = jnp.arange(fft_size) - half_max            # [-half, half)
     rows_per_frame = -(-fft_size // hop) + 1

@@ -4,7 +4,7 @@ Fills the role of pyworld's D4C + ``code_aperiodicity`` /
 ``decode_aperiodicity`` (``WorldFeatLabelGen.world_extract_features``
 WorldFeatLabelGen.py:805, ``world_features_to_raw`` :940).
 
-TPU-first formulation — chirp-corrected pitch-synchronous probing:
+Formulation — chirp-corrected pitch-synchronous probing:
 the f0 TRACK defines a continuous fundamental phase
 ``phi(n) = 2*pi*cumsum(f0)/fs``; demodulating the windowed frame at
 ``exp(-j*k*phi)`` concentrates harmonic k at DC *even under f0 drift*

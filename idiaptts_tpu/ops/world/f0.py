@@ -1,8 +1,8 @@
-"""Batched F0 tracking on TPU.
+"""Batched F0 tracking in JAX.
 
 Fills the role of pyworld's DIO/Harvest + StoneMask
 (``WorldFeatLabelGen.world_extract_features``
-WorldFeatLabelGen.py:792-793) with a TPU-first formulation:
+WorldFeatLabelGen.py:792-793) with a batched formulation:
 
 1. frame the waveform once (static shapes),
 2. normalised cross-correlation over all candidate lags via batched FFTs,
@@ -44,7 +44,7 @@ def _frame_starts(num_samples, hop, window):
 def _frame_signal(raw, hop, num_frames, seg_len, front_pad):
     """Gather-free framing: frame starts lie on the hop grid, so the
     (T, seg_len) windows are shifted slices of the hop-reshaped signal
-    (dynamic gathers are the slow path on TPU).  Frame ``t`` covers
+    (no dynamic gather).  Frame ``t`` covers
     original samples ``[t*hop - front_pad, t*hop - front_pad + seg_len)``
     (zero-padded outside the signal)."""
     rows_per_frame = -(-seg_len // hop)

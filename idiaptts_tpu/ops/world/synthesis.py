@@ -3,13 +3,12 @@
 Fills the role of pyworld.synthesize (``WorldFeatLabelGen
 .world_features_to_raw`` WorldFeatLabelGen.py:909-945).
 
-TPU-first formulation: instead of WORLD's per-pitch-mark impulse
+Formulation: instead of WORLD's per-pitch-mark impulse
 response overlap-add (irregular, data-dependent), the voiced part is an
 additive harmonic model — per-sample phase accumulation ``phi_h[n] =
 2*pi*h*cumsum(f0)/fs`` (one cumsum; phase-coherent across frames) with
 harmonic amplitudes sampled from the spectral envelope (cepstral
-expansion + Chebyshev cosine recurrence — no gathers, which dominate
-TPU time otherwise) and linearly upsampled from frame to sample rate —
+expansion + Chebyshev cosine recurrence — no gathers) and linearly upsampled from frame to sample rate —
 and the unvoiced part is white noise shaped by ``envelope *
 aperiodicity`` via one batched STFT multiply + overlap-add.  Everything
 is dense static-shape tensor work (FFTs, one cumsum, fused mul-adds)
@@ -31,10 +30,10 @@ import numpy as np
 
 
 # Degree-9 odd minimax polynomial for sin(pi*t) on [-1, 1]
-# (max error 5.9e-6 = -104 dB, inaudible).  XLA's sin on TPU spends
-# most of its time in range reduction we have already done (the phase
-# is kept in cycles in [0, 1)), so a 5-term Horner chain is ~2x faster
-# for the harmonic bank, which dominates synthesis time.
+# (max error 5.9e-6 = -104 dB, inaudible).  XLA's sin spends most of
+# its work in range reduction we have already done (the phase is kept
+# in cycles in [0, 1)), so a 5-term Horner chain is cheaper for the
+# harmonic bank.
 _SIN_C1 = 3.1415284229461573
 _SIN_C3 = -5.166408786411196
 _SIN_C5 = 2.5427382100290914
@@ -57,8 +56,8 @@ def _sin_cycles(x):
 
 def _sample_log_field(log_field, x, num_ceps=64):
     """Evaluate a smooth log-spectral field at arbitrary frequencies
-    WITHOUT gathers (TPU gathers dominate synthesis time otherwise:
-    ~140 ms vs ~0 for the arithmetic at the bench batch size).
+    WITHOUT gathers (arithmetic on the dense field instead of an
+    index lookup per harmonic).
 
     log_field: (T, K) over bins [0, fs/2]; x: (T, H) frequency in
     cycles/sample in [0, 0.5].  Returns (T, H).
@@ -241,8 +240,7 @@ def _noise_part(f0, sp_power, ap, fs, hop, key):
     """Shaped-noise synthesis directly in the frequency domain.
 
     Instead of time-domain white noise -> STFT -> multiply -> iSTFT
-    (whose gather-framing and colliding scatter overlap-add dominate
-    TPU time), draw each frame's spectrum as iid complex Gaussians,
+    (gather-framing and a colliding scatter overlap-add), draw each frame's spectrum as iid complex Gaussians,
     scale by the target amplitude, and overlap-add the windowed
     irffts on a dense hop-aligned layout (no gathers or scatters).
 

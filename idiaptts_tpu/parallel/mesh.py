@@ -1,11 +1,11 @@
-"""Device mesh utilities: data-parallel training over ICI.
+"""Device mesh utilities: data-parallel training over a device mesh.
 
-The TPU-native replacement for the reference's single-node
+The JAX replacement for the reference's single-node
 ``torch.nn.DataParallel`` (ModularModelHandlerPyTorch.py:731-735; see
 SURVEY.md §2.8): a 1-D ``jax.sharding.Mesh`` over the ``data`` axis,
 batches sharded on their leading dimension, parameters replicated.
 ``jax.jit`` with explicit in/out shardings makes XLA insert the gradient
-all-reduce over ICI; no scatter/gather, no remainder-dropping collate.
+all-reduce; no scatter/gather, no remainder-dropping collate.
 
 Multi-host (DCN) extension: call ``jax.distributed.initialize()`` before
 building the mesh and the same code spans slices.
@@ -54,7 +54,7 @@ def make_sharded_train_step(loss_fn, optimiser, mesh, axis_name="data"):
 
     loss_fn(params, batch) -> scalar loss.  Params/opt state replicated,
     batch sharded over ``axis_name``; requesting replicated outputs
-    makes XLA all-reduce the gradients over ICI.
+    makes XLA all-reduce the gradients.
     """
     repl = NamedSharding(mesh, P())
 
@@ -72,8 +72,7 @@ def make_sharded_train_step(loss_fn, optimiser, mesh, axis_name="data"):
 def make_2d_mesh(num_devices=None, model_parallel=2,
                  axis_names=("data", "model")):
     """(data, model) mesh: batch over ``data``, tensor-parallel weight
-    shards over ``model`` (ICI-adjacent axis last, per the scaling-book
-    recipe)."""
+    shards over ``model`` (the last mesh axis)."""
     devices = jax.devices()
     if num_devices is not None:
         devices = devices[:num_devices]
@@ -89,7 +88,7 @@ def make_param_shardings(params, mesh, axis_name="model",
     """Tensor-parallel sharding rules: shard each weight's trailing
     (output/hidden) dimension over ``axis_name`` when divisible,
     replicate otherwise.  GSPMD propagates the activations' shardings
-    and inserts the matching ICI collectives — no hand-written
+    and inserts the matching collectives — no hand-written
     all-gathers."""
     size = dict(zip(mesh.axis_names, mesh.devices.shape))[axis_name]
 

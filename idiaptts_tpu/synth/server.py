@@ -2,8 +2,8 @@
 pipeline.
 
 The reference has no serving story (synthesis is a per-utterance
-offline loop, Synthesiser.py:38-80).  On TPU the economics are
-different: one compiled program per length bucket synthesises a whole
+offline loop, Synthesiser.py:38-80).  On an accelerator the
+economics are different: one compiled program per length bucket synthesises a whole
 batch in a single device round trip several thousand times faster than
 real time (bench.py), so a server's job is to keep that program fed —
 collect concurrent requests, group them into bucket-shaped batches,

@@ -153,8 +153,8 @@ class Synthesiser:
                                       hparams)
         fs = hparams.get("synth_fs", 16000)
         # Batch all utterances into ONE autoregressive scan (padded to
-        # the longest): per-step matvecs become matmuls, which is the
-        # difference between ~1x and ~10x realtime on a TPU chip.
+        # the longest): per-step matvecs become matmuls, so B
+        # utterances cost about as much as one.
         ids = list(synth_output.keys())
         conds = [np.asarray(synth_output[i], np.float32) for i in ids]
         lengths = [len(c) for c in conds]

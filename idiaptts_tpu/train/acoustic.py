@@ -229,7 +229,7 @@ class AcousticModelTrainer(ModularTrainer):
                                "using the per-stage path.", e)
         return super().synth(hparams, id_list)
 
-    def build_serving(self, hparams):
+    def build_serving(self, hparams, mesh=None):
         """The serving assets of the trained model: ``(pipeline,
         params, load_inputs)`` where ``pipeline`` is the
         :class:`FusedAcousticPipeline` (model forward, denorm, MLPG,
@@ -237,7 +237,8 @@ class AcousticModelTrainer(ModularTrainer):
         ``params`` the inference parameters (EMA shadow when enabled)
         and ``load_inputs(id_name)`` the question-matrix loader
         (multi-input models ride as trailing columns).  Used by
-        ``synth`` and by :meth:`serve`."""
+        ``synth`` and by :meth:`serve`.  With ``mesh`` (1-D) the
+        pipeline shards each batch over the mesh's devices."""
         from idiaptts_tpu.synth.pipeline import FusedAcousticPipeline
 
         handler = self.model_handler
@@ -298,7 +299,7 @@ class AcousticModelTrainer(ModularTrainer):
                     hparams.get("num_bap", 1),
                     bool(hparams.get("do_post_filtering")),
                     hparams.get("mgc_alpha"),
-                    input_names, widths)
+                    input_names, widths, mesh)
         cache = getattr(self, "_fused_pipelines", None)
         if cache is None:
             cache = self._fused_pipelines = {}
@@ -345,7 +346,8 @@ class AcousticModelTrainer(ModularTrainer):
                 post_filter=bool(hparams.get("do_post_filtering")),
                 mean=np.asarray(mean).reshape(-1),
                 scale=np.asarray(scale).reshape(-1),
-                mgc_alpha=hparams.get("mgc_alpha"))
+                mgc_alpha=hparams.get("mgc_alpha"),
+                mesh=mesh)
             cache[pipe_key] = pipeline
         params = handler.ema.shadow if handler.ema is not None \
             else handler.params

@@ -242,20 +242,16 @@ class AtomVUVDistPosModelTrainer(AtomModelTrainer):
 def _adopt_submodule_params(params, path, donor):
     """Return ``params`` with the subtree at ``path`` replaced by the
     donor tree (weight transfer between the standalone sub-trainer and
-    the composed model; the flax scope of a bound submodule is its
-    attribute name, so the standalone model's whole param tree slots in
+    the composed model; the scope of a submodule held in a field is the
+    field's name, so the standalone model's whole param tree slots in
     under that key)."""
-    import flax
     import jax
     import jax.numpy as jnp
-    params = flax.core.unfreeze(params) if hasattr(params, "unfreeze") \
-        else dict(params)
+    params = dict(params)
     node = params
     for key in path[:-1]:
         node[key] = dict(node[key])
         node = node[key]
-    donor = flax.core.unfreeze(donor) if hasattr(donor, "unfreeze") \
-        else donor
     # Deep-copy the donor leaves: the jitted train steps donate their
     # parameter buffers, so aliasing the donor's arrays would leave one
     # of the two models holding deleted buffers after the next step.
@@ -271,7 +267,7 @@ class AtomNeuralFilterModelTrainer(AtomVUVDistPosModelTrainer):
     sub-model (its weights are adopted into the composed model), then
     the full model trains end-to-end on (flat) LF0 targets."""
 
-    #: flax scope of the atom sub-model inside NeuralFilters.
+    #: scope of the atom sub-model inside NeuralFilters.
     ATOM_SCOPE = ("atom_model",)
 
     def __init__(self, *args, flat_lf0=True, **kwargs):
@@ -413,7 +409,7 @@ class PhraseAtomNeuralFilterModelTrainer(AtomNeuralFilterModelTrainer):
     (PhraseAtomNeuralFilterModelTrainer.py:37-617, two-phase
     ``init_flat``/``train_flat`` :168-213)."""
 
-    #: flax scope of the flat NeuralFilters model inside
+    #: scope of the flat NeuralFilters model inside
     #: PhraseNeuralFilters.
     FLAT_SCOPE = ("neural_filters",)
 

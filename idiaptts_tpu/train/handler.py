@@ -8,12 +8,12 @@ factories (:553-656), the epoch loop ``process_dataloader`` (:683-882),
 batched ``inference`` (:964-993), EMA (:57,672-681), gradient clipping
 and inf-replacement (:807-818, 898-910).
 
-TPU-native design: the train step is one jit-compiled pure function
-(forward, masked losses, grads, optax update, EMA) specialised per batch
-bucket shape; data parallelism is a 1-D ``jax.sharding.Mesh`` with the
-batch sharded over the ``data`` axis and parameters replicated — XLA
-inserts the gradient all-reduce over ICI (no DataParallel scatter /
-gather, no remainder dropping).
+Design: the train step is one jit-compiled pure function (forward,
+masked losses, grads, optax update, EMA) specialised per batch bucket
+shape; data parallelism is a 1-D ``jax.sharding.Mesh`` with the batch
+sharded over the ``data`` axis and parameters replicated — XLA inserts
+the gradient all-reduce (no DataParallel scatter / gather, no remainder
+dropping).
 """
 
 import contextlib
@@ -24,7 +24,6 @@ import os
 import re
 from functools import partial
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +33,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from idiaptts_tpu.data.dataset import collate_batch
 from idiaptts_tpu.models.config import ModelConfig
 from idiaptts_tpu.train.model_handler_base import ModelHandler
+from idiaptts_tpu.utils import serialization
 from idiaptts_tpu.train.schedulers import create_scheduler
 
 logger = logging.getLogger(__name__)
@@ -76,11 +76,11 @@ class ModularModelHandler(ModelHandler):
         self.dim_out = None
         self.mesh = None
         self.total_steps = 0
-        # "msgpack" (single-file flax blobs) or "orbax" (directory
-        # checkpoints; saves sharded multi-chip arrays natively).
+        # "msgpack" (single-file blobs) or "orbax" (directory
+        # checkpoints; saves sharded multi-device arrays natively).
         self.checkpoint_backend = "msgpack"
-        # "auto": shard_map data-parallel training on real hardware
-        # (keeps the Pallas fast paths live per chip); GSPMD on CPU.
+        # "auto" trains through the GSPMD step; True selects the
+        # explicit shard_map step.
         self.use_shard_map = "auto"
         self._train_step_fn = None
         self._eval_step_fn = None
@@ -96,19 +96,14 @@ class ModularModelHandler(ModelHandler):
         ``model_parallel=1``: 1-D data-parallel mesh (the reference's
         DataParallel role, ModularModelHandlerPyTorch.py:731-735).
         ``model_parallel=M``: 2-D ``(data, model)`` mesh — weights'
-        trailing dims shard over the ICI-adjacent ``model`` axis
+        trailing dims shard over the ``model`` axis
         (tensor parallelism), batches over ``data``; GSPMD inserts the
         collectives.
 
-        ``use_shard_map``: train through an explicit ``jax.shard_map``
-        per-device program instead of a GSPMD-sharded jit (1-D mesh
-        only).  The per-device trace is single-device, so the Pallas
-        fast paths (fused BiLSTM layer/recurrence) stay live under
-        multi-chip data-parallel training; a plain GSPMD program has no
-        partitioning rule for ``pallas_call`` and falls back to the
-        scan formulation.  "auto" = on for multi-device 1-D meshes on
-        real hardware, off on CPU (where kernels are scan-fallbacks
-        anyway and GSPMD keeps dropout bit-identical to 1-device)."""
+        ``use_shard_map``: ``True`` trains through an explicit
+        ``jax.shard_map`` per-device program instead of a GSPMD-sharded
+        jit (1-D mesh only); "auto" and ``False`` use the GSPMD step,
+        which keeps dropout bit-identical to one device."""
         devices = jax.devices()
         if num_devices is not None:
             devices = devices[:num_devices]
@@ -242,8 +237,8 @@ class ModularModelHandler(ModelHandler):
             # adaptation freezing, e.g. SSW'19 VTLN: freeze the
             # average-voice pre-net, train only the warp layer).
             def _frozen_mask(tree, _patterns=tuple(frozen)):
-                flat = flax.traverse_util.flatten_dict(tree, sep="/")
-                return flax.traverse_util.unflatten_dict(
+                flat = serialization.flatten_dict(tree, sep="/")
+                return serialization.unflatten_dict(
                     {path: any(re.search(p, path) for p in _patterns)
                      for path in flat}, sep="/")
             chain.append(optax.masked(optax.set_to_zero(),
@@ -405,11 +400,7 @@ class ModularModelHandler(ModelHandler):
         if (self.mesh is None or self.model_axis
                 or self._data_axis_size < 2):
             return False
-        if self.use_shard_map == "auto":
-            from idiaptts_tpu.ops import pallas_ctx
-            return (jax.default_backend() not in ("cpu",)
-                    or pallas_ctx.interpret_forced())
-        return bool(self.use_shard_map)
+        return self.use_shard_map is True
 
     def _get_shmap_step(self, data, lengths):
         """shard_map train step for this batch's sharding pattern, or
@@ -445,11 +436,9 @@ class ModularModelHandler(ModelHandler):
     def _make_train_step_shard_map(self, batch_spec, lengths_spec):
         """Data-parallel train step as an explicit ``jax.shard_map``.
 
-        Each device runs a SINGLE-DEVICE program on its batch shard —
-        the trace the Pallas fast paths require (the caller wraps the
-        invocation in ``pallas_ctx.force_single_device``).  Exactness
-        vs the GSPMD step: the per-device forward's outputs (plus
-        intermediates) are all-gathered over ICI before the losses run,
+        Each device runs a single-device program on its batch shard.
+        Exactness vs the GSPMD step: the per-device forward's outputs
+        (plus intermediates) are all-gathered before the losses run,
         so every device evaluates the losses on the FULL batch — global
         mask denominators included — and the loss/grads/update equal
         the GSPMD program's, not an average of per-shard means.  The
@@ -545,29 +534,11 @@ class ModularModelHandler(ModelHandler):
                         step_fn = shmap_fn
                 # step/lr as traced scalars: python ints would retrace
                 # the jitted step every iteration.
-                from idiaptts_tpu.ops import pallas_ctx
-                # Per-device batch rows decide the residual precision:
-                # above 32 rows per direction the fused kernels only
-                # stay profitable with bf16 residual streams (measured
-                # B=64: 62.3 vs the scan's 37.1 TF/s; at B<=32 the f32
-                # streams are exact AND faster).  Trace-time flags:
-                # cache hits skip both contexts entirely.
-                per_dev_b = next(
-                    (v.shape[0] for v in data.values()
-                     if getattr(v, "ndim", 0) >= 1), 0)
-                if step_fn is not self._train_step_fn:
-                    per_dev_b //= max(self._data_axis_size, 1)
-                with contextlib.ExitStack() as stack:
-                    if step_fn is not self._train_step_fn:
-                        stack.enter_context(
-                            pallas_ctx.force_single_device())
-                    stack.enter_context(pallas_ctx.train_profile(
-                        bf16_residuals=per_dev_b > 32))
-                    (self.params, self.opt_state, total, loss_values,
-                     grad_norm, new_stats) = step_fn(
-                        self.params, self.batch_stats, self.opt_state,
-                        data, lengths, rng, jnp.asarray(self.total_steps),
-                        jnp.asarray(lr, jnp.float32))
+                (self.params, self.opt_state, total, loss_values,
+                 grad_norm, new_stats) = step_fn(
+                    self.params, self.batch_stats, self.opt_state,
+                    data, lengths, rng, jnp.asarray(self.total_steps),
+                    jnp.asarray(lr, jnp.float32))
                 if new_stats is not None:
                     self.batch_stats = new_stats
                 if self.ema is not None:
@@ -648,8 +619,10 @@ class ModularModelHandler(ModelHandler):
                      "batch_stats": self.batch_stats}
         def atomic_write(path, blob, mode="wb"):
             # Write-then-rename so a crash or concurrent reader never
-            # sees a truncated checkpoint.
-            tmp = path + ".tmp"
+            # sees a truncated checkpoint; the temporary name is per
+            # process because every process of a multi-process run
+            # writes the same files.
+            tmp = "{}.tmp{}".format(path, os.getpid())
             with open(tmp, mode) as f:
                 f.write(blob)
             os.replace(tmp, path)
@@ -657,32 +630,29 @@ class ModularModelHandler(ModelHandler):
         if self.checkpoint_backend == "orbax":
             import orbax.checkpoint as ocp
             ckptr = ocp.PyTreeCheckpointer()
-            tree = {"state": flax.serialization.to_state_dict(state),
+            tree = {"state": serialization.to_state_dict(state),
                     "meta": {"best_loss": best_loss,
                              "total_steps": self.total_steps}}
             if self.opt_state is not None:
                 tree["opt_state"] = _to_serialisable(
-                    flax.serialization.to_state_dict(self.opt_state))
+                    serialization.to_state_dict(self.opt_state))
             for suffix in suffixes:
                 ckptr.save(os.path.abspath(
                     os.path.join(out_dir, "params_" + suffix)),
                     tree, force=True)
                 if self.scheduler is not None:
-                    tmp = os.path.join(out_dir,
-                                       "scheduler_" + suffix + ".tmp")
-                    with open(tmp, "w") as f:
-                        f.write(json.dumps(_jsonable(
-                            self.scheduler.state_dict())))
-                    os.replace(tmp, os.path.join(
-                        out_dir, "scheduler_" + suffix))
+                    atomic_write(
+                        os.path.join(out_dir, "scheduler_" + suffix),
+                        json.dumps(_jsonable(self.scheduler.state_dict())),
+                        mode="w")
             return out_dir
 
-        params_blob = flax.serialization.to_bytes(state)
+        params_blob = serialization.to_bytes(state)
         opt_blob_bytes = None
         if self.opt_state is not None:
-            opt_blob_bytes = flax.serialization.msgpack_serialize(
+            opt_blob_bytes = serialization.msgpack_serialize(
                 _to_serialisable({
-                    "opt_state": flax.serialization.to_state_dict(
+                    "opt_state": serialization.to_state_dict(
                         self.opt_state),
                     "best_loss": best_loss,
                     "total_steps": self.total_steps,
@@ -733,7 +703,7 @@ class ModularModelHandler(ModelHandler):
                 os.path.abspath(path))
             raw = orbax_tree["state"]
             if self.params is not None and "raw_params" not in raw:
-                state = flax.serialization.from_state_dict(
+                state = serialization.from_state_dict(
                     {"params": self.params,
                      "batch_stats": self.batch_stats}, raw)
             else:
@@ -745,7 +715,7 @@ class ModularModelHandler(ModelHandler):
             # optional keys (raw_params next to the EMA params) and
             # every consumer below re-materialises leaves with
             # jnp.asarray anyway.
-            state = flax.serialization.msgpack_restore(blob)
+            state = serialization.msgpack_restore(blob)
         new_params = state["params"]
         # EMA checkpoints: "params" is the inference shadow;
         # "raw_params" (when present) are the optimised weights the
@@ -778,7 +748,7 @@ class ModularModelHandler(ModelHandler):
             if load_optimiser and self.optimiser is not None \
                     and orbax_tree.get("opt_state") is not None:
                 try:
-                    self.opt_state = flax.serialization.from_state_dict(
+                    self.opt_state = serialization.from_state_dict(
                         self.optimiser.init(self.params),
                         orbax_tree["opt_state"])
                 except (KeyError, ValueError) as e:
@@ -792,7 +762,7 @@ class ModularModelHandler(ModelHandler):
             # wanted (resume via load_newest must not clobber a better
             # params_best with the resumed run's first validation).
             with open(opt_path, "rb") as f:
-                opt_blob = flax.serialization.msgpack_restore(f.read())
+                opt_blob = serialization.msgpack_restore(f.read())
             best_loss = opt_blob.get("best_loss")
             if isinstance(best_loss, np.ndarray):
                 best_loss = float(best_loss)
@@ -800,7 +770,7 @@ class ModularModelHandler(ModelHandler):
             if load_optimiser and self.optimiser is not None:
                 try:
                     self.opt_state = \
-                        flax.serialization.from_state_dict(
+                        serialization.from_state_dict(
                             self.optimiser.init(self.params),
                             opt_blob["opt_state"])
                 except (KeyError, ValueError) as e:
@@ -827,7 +797,7 @@ class ModularModelHandler(ModelHandler):
     def _newest_suffix(out_dir):
         candidates = [p for p in glob.glob(
             os.path.join(out_dir, "params_*"))
-            if not p.endswith(".tmp")
+            if not re.search(r"\.tmp\d*$", p)
             and "checkpoint-tmp" not in p]       # orbax in-progress dirs
         if not candidates:
             raise FileNotFoundError("No checkpoint in " + out_dir)
@@ -865,21 +835,21 @@ def _set_lr(opt_state, opt_index, lr):
 
 def _apply_layer_map(params, layer_map):
     """Regex rename of parameter paths (load_checkpoint :264-283)."""
-    flat = flax.traverse_util.flatten_dict(params, sep="/")
+    flat = serialization.flatten_dict(params, sep="/")
     renamed = {}
     for path, value in flat.items():
         new_path = path
         for pattern, replacement in layer_map:
             new_path = re.sub(pattern, replacement, new_path)
         renamed[new_path] = value
-    return flax.traverse_util.unflatten_dict(renamed, sep="/")
+    return serialization.unflatten_dict(renamed, sep="/")
 
 
 def _merge_ignored(new_params, current_params, ignore_layers):
     """Keep current values for parameters matching ignore patterns
     (load_checkpoint :285-309)."""
-    flat_new = flax.traverse_util.flatten_dict(new_params, sep="/")
-    flat_cur = flax.traverse_util.flatten_dict(current_params, sep="/")
+    flat_new = serialization.flatten_dict(new_params, sep="/")
+    flat_cur = serialization.flatten_dict(current_params, sep="/")
     merged = {}
     for path in flat_cur:
         ignored = any(re.search(pattern, path)
@@ -888,7 +858,7 @@ def _merge_ignored(new_params, current_params, ignore_layers):
             merged[path] = flat_cur[path]
         else:
             merged[path] = flat_new[path]
-    return flax.traverse_util.unflatten_dict(merged, sep="/")
+    return serialization.unflatten_dict(merged, sep="/")
 
 
 def _to_serialisable(tree):

@@ -49,12 +49,12 @@ def equal_checkpoint(dir_a, suffix_a, dir_b, suffix_b, atol=0.0):
     """Compare two saved checkpoints (utils.equal_checkpoint :62-117
     role): params (+batch stats) loaded from
     ``<dir>/params_<suffix>``."""
-    import flax
+    from idiaptts_tpu.utils.serialization import msgpack_restore
 
     def load(directory, suffix):
         with open(os.path.join(directory, "params_" + suffix),
                   "rb") as f:
-            return flax.serialization.msgpack_restore(f.read())
+            return msgpack_restore(f.read())
 
     return equal_iterable(load(dir_a, suffix_a), load(dir_b, suffix_b),
                           atol)

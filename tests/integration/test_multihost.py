@@ -101,10 +101,10 @@ _TRAIN_WORKER = textwrap.dedent("""
     h.save_checkpoint(ckpt_dir, model_name="mh", epoch=1)
     h2 = make_handler()
     h2.load_checkpoint(ckpt_dir, model_name="mh", epoch=1)
-    import flax
-    fa = flax.traverse_util.flatten_dict(jax.tree_util.tree_map(
+    from idiaptts_tpu.utils import serialization
+    fa = serialization.flatten_dict(jax.tree_util.tree_map(
         np.asarray, h.params), sep="/")
-    fb = flax.traverse_util.flatten_dict(jax.tree_util.tree_map(
+    fb = serialization.flatten_dict(jax.tree_util.tree_map(
         np.asarray, h2.params), sep="/")
     assert fa.keys() == fb.keys()
     for k in fa:

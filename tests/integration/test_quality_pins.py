@@ -57,7 +57,7 @@ RTOL = 0.01
 def assert_pinned(key, got, pinned, rtol=RTOL):
     """Two-sided drift pin on the recording platform (virtual CPU —
     the platform the values were recorded on); on other backends
-    (``IDIAPTTS_TEST_PLATFORM=tpu``) the training trajectory differs
+    (``IDIAPTTS_TEST_PLATFORM=gpu``) the training trajectory differs
     (bf16 matmuls, fused kernels), so assert the one-sided QUALITY
     bound instead: the run must not be materially worse than the pin
     (hardware runs that beat the pin — observed for the duration

@@ -5,12 +5,11 @@ CPU test platform, so no integration pipeline exercised the shard_map
 step outside the dedicated unit tests + the driver dryrun.  This test
 runs the real ``AcousticModelTrainer`` front door (questions -> BiLSTM
 -> WORLD cmp) on the fixture corpus over a dp(2) mesh with
-``hparams.use_shard_map = True``, proving the per-device program — the
-production multi-chip TPU path that keeps the Pallas kernels live —
+``hparams.use_shard_map = True``, proving the per-device program
 trains end to end inside the full data/checkpoint/scheduler machinery.
 
 Reference role: DataParallel training engine
-(ModularModelHandlerPyTorch.py:731-735) scaled to a TPU mesh.
+(ModularModelHandlerPyTorch.py:731-735) scaled to a device mesh.
 """
 
 import os

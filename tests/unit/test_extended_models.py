@@ -221,10 +221,9 @@ def test_identify_peaks():
 
 def test_windowing_wrapper_matches_direct():
     """For a frame-local model, windowed application equals direct."""
-    import flax.linen as nn
+    from idiaptts_tpu.models import nn
 
     class Local(nn.Module):
-        @nn.compact
         def __call__(self, data_dict, lengths=None, training=False):
             x = data_dict["x"]
             return {"pred": x * 2.0 + 1.0}
@@ -299,7 +298,7 @@ def test_wavenet_generation_matches_teacher_forcing():
 
     # Manual incremental evaluation with the same teacher-forced
     # history, reusing the generation math.
-    import flax
+    from idiaptts_tpu.utils import serialization
     from idiaptts_tpu.models.wavenet import WaveNet
     # Compare the argmax path where history matches: feed the target
     # history through the parallel net shifted by one.
@@ -339,7 +338,7 @@ def test_wavenet_batched_generation_matches_single():
 def test_wavenet_vocoder_checkpoint_and_synthesiser(tmp_path):
     """Config JSON round trip for nested Config classes + batched
     Synthesiser.run_wavenet_vocoder with per-utterance length trim."""
-    import flax
+    from idiaptts_tpu.utils import serialization
     from idiaptts_tpu.hparams import ExtendedHParams
     from idiaptts_tpu.ops.audio_io import get_raw
     from idiaptts_tpu.synth.synthesiser import Synthesiser
@@ -364,8 +363,8 @@ def test_wavenet_vocoder_checkpoint_and_synthesiser(tmp_path):
     ckpt.mkdir()
     (ckpt / "config.json").write_text(cfg.to_json())
     with open(ckpt / "params_1", "wb") as f:
-        f.write(flax.serialization.msgpack_serialize(
-            {"params": flax.core.unfreeze(params)["params"]}))
+        f.write(serialization.msgpack_serialize(
+            {"params": params["params"]}))
 
     hp = ExtendedHParams.create_hparams()
     hp.add_hparams(synth_vocoder_path=str(ckpt))
@@ -410,7 +409,7 @@ def test_synthesiser_copy_synth_and_gl_on_log(fixtures_dir, id_list,
 def test_r9y9wavenet_world_feats_wrapper(tmp_path):
     """run_r9y9wavenet_mulaw_world_feats_synth upsamples WORLD frame
     features to sample rate and runs the neural vocoder."""
-    import flax
+    from idiaptts_tpu.utils import serialization
     import os
     from idiaptts_tpu.hparams import ExtendedHParams
     from idiaptts_tpu.ops.audio_io import get_raw
@@ -431,8 +430,8 @@ def test_r9y9wavenet_world_feats_wrapper(tmp_path):
     ckpt.mkdir()
     (ckpt / "config.json").write_text(cfg.to_json())
     with open(ckpt / "params_1", "wb") as f:
-        f.write(flax.serialization.msgpack_serialize(
-            {"params": flax.core.unfreeze(params)["params"]}))
+        f.write(serialization.msgpack_serialize(
+            {"params": params["params"]}))
     hp = ExtendedHParams.create_hparams()
     hp.add_hparams(synth_vocoder_path=str(ckpt))
     hp.do_post_filtering = True
@@ -531,10 +530,9 @@ def test_windowing_wrapper_multi_input_and_extra_outputs():
     and merges every output (:229-233): a two-input frame-local model
     round-trips through windows, and outputs beyond output_names keep
     their inner names."""
-    import flax.linen as nn
+    from idiaptts_tpu.models import nn
 
     class TwoIn(nn.Module):
-        @nn.compact
         def __call__(self, data_dict, lengths=None, training=False):
             a, b = data_dict["a"], data_dict["b"]
             return {"pred": a + 2.0 * b, "aux": a - b}
@@ -557,10 +555,9 @@ def test_windowing_wrapper_reduce_merges_mask_invalid_chunks():
     """add/mean/mul merges reduce across each sample's VALID chunks
     only (reference :252-310 valid-chunk loops), under static shapes
     with ragged lengths."""
-    import flax.linen as nn
+    from idiaptts_tpu.models import nn
 
     class Sum(nn.Module):
-        @nn.compact
         def __call__(self, data_dict, lengths=None, training=False):
             x = data_dict["x"]
             # Zero padded frames so chunk content reflects lengths.
@@ -604,10 +601,9 @@ def test_windowing_wrapper_reduce_merges_mask_invalid_chunks():
 def test_windowing_wrapper_cat_merge():
     """cat concatenates chunk outputs along time (reference
     MERGE_TYPE_CAT :215-227), step == window."""
-    import flax.linen as nn
+    from idiaptts_tpu.models import nn
 
     class Id(nn.Module):
-        @nn.compact
         def __call__(self, data_dict, lengths=None, training=False):
             return {"pred": data_dict["x"] * 3.0}
 
@@ -632,11 +628,10 @@ def test_windowing_wrapper_static_first_input():
     import numpy as np
     from idiaptts_tpu.models.wrappers import WindowingWrapper
     from idiaptts_tpu.models.named import NamedForwardWrapper
-    import flax.linen as nn
+    from idiaptts_tpu.models import nn
 
     class Probe(nn.Module):
         """Records the time length it was called with."""
-        @nn.compact
         def __call__(self, data_dict, lengths=None, training=False):
             x = data_dict["frames"]
             emb = data_dict["spk"]

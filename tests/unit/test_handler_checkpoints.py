@@ -78,7 +78,7 @@ def test_newest_checkpoint_scan(tmp_path):
 
 
 def test_ignore_layers():
-    import flax
+    from idiaptts_tpu.utils import serialization
     a = {"layer1": {"kernel": np.ones((2, 2))},
          "layer2": {"kernel": np.ones((2, 2))}}
     current = {"layer1": {"kernel": np.zeros((2, 2))},
@@ -170,7 +170,7 @@ def test_frozen_layers_updates_only_unfrozen():
     before clipping/Adam, so frozen parameters stay bit-identical while
     the rest train (transfer-learning freeze, e.g. SSW'19 VTLN
     adaptation: frozen average-voice pre-net + trainable warp layer)."""
-    import flax
+    from idiaptts_tpu.utils import serialization
 
     from idiaptts_tpu.models.losses import NamedLoss
 
@@ -189,11 +189,11 @@ def test_frozen_layers_updates_only_unfrozen():
     handler.set_scheduler(hparams)
     handler.set_losses([NamedLoss.Config("l", "MSELoss",
                                          ("pred", "target"))])
-    before = flax.traverse_util.flatten_dict(
+    before = serialization.flatten_dict(
         jax.tree_util.tree_map(np.asarray, handler.params), sep="/")
     handler.process_batches([batch], training=True)
     handler.process_batches([batch], training=True)
-    after = flax.traverse_util.flatten_dict(
+    after = serialization.flatten_dict(
         jax.tree_util.tree_map(np.asarray, handler.params), sep="/")
     for path in before:
         if "g0_Linear_0" in path:

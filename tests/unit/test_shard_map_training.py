@@ -1,23 +1,15 @@
-"""shard_map data-parallel TRAINING keeps the Pallas fast paths.
+"""shard_map data-parallel training equals the GSPMD step.
 
-Under a GSPMD-sharded jit a ``pallas_call`` has no partitioning rule,
-so multi-chip training used to fall back to the scan formulation (the
-round-3 admission in docs/PERFORMANCE.md "Scaling").  The handler's
-``use_shard_map`` path traces one single-device program per chip —
-exactly like the sharded serving pipeline — so the fused BiLSTM
-layer/recurrence kernels stay live in multi-chip data-parallel
-training.  These tests prove on the 8-device virtual CPU platform
-(kernels in interpret mode) that
-
-- the shard_map step's loss, per-loss values and updated parameters
-  equal the GSPMD step's (exactness comes from all-gathering the model
-  outputs before the losses run: global mask denominators, then a grad
-  psum — NOT an average of per-shard loss means), and
-- the Pallas kernel code path genuinely executes inside the per-device
-  program.
+The handler's ``use_shard_map=True`` path traces one single-device
+program per device — exactly like the sharded serving pipeline.  These
+tests prove on the 8-device virtual CPU platform that the shard_map
+step's loss, per-loss values and updated parameters equal the GSPMD
+step's (exactness comes from all-gathering the model outputs before the
+losses run: global mask denominators, then a grad psum — NOT an average
+of per-shard loss means), and that ``"auto"`` picks the GSPMD step.
 
 Reference role: DataParallel training engine
-(ModularModelHandlerPyTorch.py:731-735) scaled to a TPU mesh.
+(ModularModelHandlerPyTorch.py:731-735) scaled to a device mesh.
 """
 
 import numpy as np
@@ -29,7 +21,6 @@ from idiaptts_tpu.data.dataset import collate_batch
 from idiaptts_tpu.hparams import ExtendedHParams
 from idiaptts_tpu.models.losses import NamedLoss
 from idiaptts_tpu.models.rnn_dyn import convert_legacy_string
-from idiaptts_tpu.ops import pallas_ctx
 from idiaptts_tpu.train.handler import ModularModelHandler
 
 pytestmark = pytest.mark.skipif(
@@ -54,7 +45,6 @@ def _make_batch(B=8, D=12, lengths=(17, 23, 9, 30, 21, 13, 27, 11)):
 
 def _make_handler(num_devices=None, use_shard_map=False, D=12,
                   optimiser="SGD"):
-    # F=128 so the fused-kernel shape gate (lane-aligned gates) passes.
     # SGD by default: parity tests compare post-update losses, and SGD
     # scales gradient differences linearly by lr, whereas one Adam step
     # is ~lr*sign(g) — reduction-order noise (1e-7) on near-zero grads
@@ -78,8 +68,8 @@ def _make_handler(num_devices=None, use_shard_map=False, D=12,
 
 
 def _flat(params):
-    import flax
-    return flax.traverse_util.flatten_dict(
+    from idiaptts_tpu.utils.serialization import flatten_dict
+    return flatten_dict(
         jax.tree_util.tree_map(np.asarray, params), sep="/")
 
 
@@ -116,51 +106,8 @@ def test_shard_map_step_matches_gspmd():
                                    atol=1e-5, err_msg=path)
 
 
-def test_shard_map_step_runs_pallas_kernels(monkeypatch):
-    """With force_interpret the per-device shard_map program traces the
-    REAL Pallas kernel bodies (the production multi-chip TPU path), and
-    training stays within bf16 rounding of the GSPMD scan run.  The
-    residual tolerance is a CPU artifact: the interpret kernel pins f32
-    MXU accumulation while the CPU scan einsum accumulates in bf16 —
-    on TPU hardware both accumulate f32 and the kernel is bit-exact
-    (test_pallas_lstm.py)."""
-    from idiaptts_tpu.ops import pallas_lstm
-
-    calls = {"n": 0}
-    # Count every kernel driver: training traces the residual-saving
-    # train variants (plus the backward kernel), inference the plain
-    # ones.
-    for name in ("_layer_tmajor", "_recurrence_tmajor",
-                 "_layer_train_tmajor", "_recurrence_train_tmajor",
-                 "_dz_bwd_tmajor"):
-        orig = getattr(pallas_lstm, name)
-        monkeypatch.setattr(
-            pallas_lstm, name,
-            lambda *a, _orig=orig, **k: (
-                calls.__setitem__("n", calls["n"] + 1),
-                _orig(*a, **k))[1])
-
-    batch = _make_batch()
-    h_gspmd = _make_handler(num_devices=8, use_shard_map=False)
-    h_shmap = _make_handler(num_devices=8, use_shard_map=True)
-
-    loss_g = [h_gspmd.process_batches([batch], training=True)[0]
-              for _ in range(2)]
-    assert calls["n"] == 0, "GSPMD path must not trace kernels"
-    with pallas_ctx.force_interpret():
-        loss_s = [h_shmap.process_batches([batch], training=True)[0]
-                  for _ in range(2)]
-    assert calls["n"] > 0, \
-        "Pallas kernel path not traced inside the shard_map program"
-
-    np.testing.assert_allclose(loss_s, loss_g, rtol=2e-2)
-    # First pre-update loss is identical (forward parity before any
-    # bf16-accumulation drift can compound through the optimiser).
-    np.testing.assert_allclose(loss_s[0], loss_g[0], rtol=1e-5)
-
-
-@pytest.mark.parametrize("interpret,rtol", [(False, 1e-2), (True, 2e-2)])
-def test_shard_map_gradients_match_scan_path(interpret, rtol):
+@pytest.mark.parametrize("rtol", [1e-2])
+def test_shard_map_gradients_match_scan_path(rtol):
     """The pmean'd shard_map gradients equal the GSPMD-sharded gradient
     of the handler's loss over the SAME dp(8) mesh, to bf16 rounding
     scale.  Bit-level identity is not achievable: every layer's matmul
@@ -173,9 +120,7 @@ def test_shard_map_gradients_match_scan_path(interpret, rtol):
     per-shard means) is proven by ``test_shard_map_step_matches_gspmd``
     at rtol 1e-5 on the LOSS — an averaging bug with these variable
     lengths would show >10% error there.  This test additionally locks
-    the gradients themselves at bf16 scale, with the per-device body
-    running the scan (interpret=False) and the REAL Pallas kernels
-    (interpret=True)."""
+    the gradients themselves at bf16 scale."""
     batch = _make_batch()
     handler = _make_handler(num_devices=8, use_shard_map=True)
     data, lengths = handler._batch_to_model_input(batch)
@@ -226,12 +171,7 @@ def test_shard_map_gradients_match_scan_path(interpret, rtol):
     got_fn = jax.jit(jax.shard_map(
         probe, mesh=handler.mesh, in_specs=(P(), bspec, lspec),
         out_specs=P(), check_vma=False))
-    if interpret:
-        with (pallas_ctx.force_interpret(),
-              pallas_ctx.force_single_device()):
-            got = _flat(got_fn(handler.params, data, lengths))
-    else:
-        got = _flat(got_fn(handler.params, data, lengths))
+    got = _flat(got_fn(handler.params, data, lengths))
 
     for path in want:
         np.testing.assert_allclose(got[path], want[path], rtol=rtol,
@@ -283,9 +223,9 @@ def test_shard_map_nondivisible_batch_falls_back_to_gspmd():
 
 
 def test_auto_mode_is_off_on_cpu():
-    """use_shard_map='auto' resolves to GSPMD on the CPU backend (the
-    kernels are scan fallbacks there) but honours force_interpret."""
+    """use_shard_map='auto' resolves to the GSPMD step (on every
+    backend); only an explicit True selects the shard_map step."""
     handler = _make_handler(num_devices=8, use_shard_map="auto")
     assert not handler._shard_map_enabled()
-    with pallas_ctx.force_interpret():
-        assert handler._shard_map_enabled()
+    handler.use_shard_map = True
+    assert handler._shard_map_enabled()

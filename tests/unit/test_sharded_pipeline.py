@@ -99,7 +99,7 @@ def test_pcm16_packed_path_matches_float_path():
     params = {"W": W}
     pipeline = FusedAcousticPipeline(model_apply, variances,
                                      num_coded_sps=D, fs=16000)
-    assert pipeline.transfer_dtype == np.float32  # CPU backend
+    assert pipeline.pack_bits       # the same on every backend
 
     floats = pipeline(params, questions, seed=3)
     pcms = pipeline(params, questions, seed=3, pcm16=True)
@@ -151,9 +151,9 @@ def test_pcm16_bit_packed_path_is_exact():
     params = {"W": W}
     pipeline = FusedAcousticPipeline(model_apply, variances,
                                      num_coded_sps=D, fs=16000)
-    assert not pipeline.pack_bits                    # CPU default
-    dense = pipeline(params, questions, seed=5, pcm16=True)
-    pipeline.pack_bits = True
+    assert pipeline.pack_bits              # default on every backend
     packed = pipeline(params, questions, seed=5, pcm16=True)
+    pipeline.pack_bits = False
+    dense = pipeline(params, questions, seed=5, pcm16=True)
     for d, p in zip(dense, packed):
         np.testing.assert_array_equal(d, p)

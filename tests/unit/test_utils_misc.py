@@ -5,7 +5,7 @@ import pytest
 
 
 def test_equality_utils(tmp_path):
-    import flax
+    from idiaptts_tpu.utils import serialization
     from idiaptts_tpu.utils.equality import (equal_checkpoint,
                                              equal_iterable,
                                              equal_model, tensor_pad)
@@ -20,7 +20,7 @@ def test_equality_utils(tmp_path):
     for name, params in [("a", a), ("c", {"w": np.ones((3, 2)),
                                           "b": [np.zeros(2)]})]:
         with open(tmp_path / ("params_" + name), "wb") as f:
-            f.write(flax.serialization.msgpack_serialize(
+            f.write(serialization.msgpack_serialize(
                 {"params": params}))
     # a vs a copy with same values
     assert equal_checkpoint(str(tmp_path), "a", str(tmp_path), "a")
@@ -101,15 +101,14 @@ def test_remat_layer_group():
                                    atol=1e-5)
 
 def test_custom_layer_in_rnn_dyn():
-    """Custom layer type embeds an arbitrary flax module in the stack
+    """Custom layer type embeds an arbitrary module in the stack
     (rnn_dyn/CustomWrapper.py role)."""
-    import flax.linen as nn
+    from idiaptts_tpu.models import nn
     import jax
     import jax.numpy as jnp
     from idiaptts_tpu.models.rnn_dyn import Config, LayerConfig, RNNDyn
 
     class Doubler(nn.Module):
-        @nn.compact
         def __call__(self, x):
             return x * 2.0
 

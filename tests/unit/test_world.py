@@ -115,7 +115,7 @@ def test_mcep_direct_compat_with_reference_fixtures(ref_fixtures_dir):
     test_WorldFeatLabelGen.py:710,773) and warping alpha 0.58 for
     16 kHz (the commented Merlin table in AudioProcessing.py:42; its
     live code now returns pysptk.mcepalpha -> 0.41).  With matching
-    settings the full TPU extraction path (our F0 + CheapTrick + UELS
+    settings the full extraction path (our F0 + CheapTrick + UELS
     mcep) lands at ~2.6-3.1 dB raw MCD against pyworld+pysptk output —
     the residual is envelope fine structure, not a basis difference
     (see test_mcep_recovers_sptk_model_exactly).  A regression in

@@ -1,6 +1,6 @@
 """Property/edge-case tests for the WORLD kernels: silence, pure tone,
 white noise, very short input — the classic DSP invariants that guard
-the gather-free TPU reformulations."""
+the gather-free reformulations."""
 
 import numpy as np
 import pytest
